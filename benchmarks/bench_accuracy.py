@@ -25,15 +25,15 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np
 
-from smc_tpu import smc
-from smc_tpu.models.linear import (linear_parameters, make_linear_loglike,
+from smc_jax import smc
+from smc_jax.models.linear import (linear_parameters, make_linear_loglike,
                                    generate_linear_data)
 
 TRUE = np.array([1.0, 1.0, 1.0, 2.0, 2.0, 1.0, 3.0, 3.0, 1.0])
 
 
 def main():
-    from smc_tpu.models.linear import exact_linear_posterior
+    from smc_jax.models.linear import exact_linear_posterior
 
     R = int(sys.argv[1]) if len(sys.argv) > 1 else 10
     n_blocks = 3 if "--blocks3" in sys.argv else 1

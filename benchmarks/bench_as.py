@@ -2,7 +2,7 @@
 (mutation = RE solve by cyclic reduction + Kalman scan per proposal) and
 wall-clock of a full estimation to target ESS (BASELINE.json north-star).
 
-Run on the default backend (TPU when attached):
+Run on the default backend (the GPU when one is present):
   python benchmarks/bench_as.py [n_parts] [--full]
 """
 
@@ -22,10 +22,10 @@ import numpy as np
 
 jax.config.update("jax_enable_x64", True)
 
-from smc_tpu.params import ParamSpace
-from smc_tpu.models.as_dsge import (an_schorfheide, an_schorfheide_parameters,
+from smc_jax.params import ParamSpace
+from smc_jax.models.as_dsge import (an_schorfheide, an_schorfheide_parameters,
                                     generate_as_data)
-from smc_tpu.smc import make_superstep, smc
+from smc_jax.smc import make_superstep, smc
 
 
 def throughput(n_parts: int):

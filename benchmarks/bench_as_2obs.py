@@ -1,11 +1,10 @@
 """n_obs != 3 innovation-solve path (bl_chol_solve) on the chip.
 
-Round-4 VERDICT ask #10: the unrolled-Cholesky PSD path (ops/linalg.py
-bl_chol_solve) — used whenever n_obs != 3, e.g. Smets-Wouters' 7
-observables — had no dedicated hardware number. This times the 2-obs
-An-Schorfheide variant's full batch-last likelihood IN-LOOP (K iterations
-inside one lax.while_loop dispatch, so the ~24 ms/dispatch infra floor of
-this box divides out) and asserts parity against the vmapped f64 path.
+The unrolled-Cholesky PSD path (ops/linalg.py bl_chol_solve) is used
+whenever n_obs != 3, e.g. Smets-Wouters' 7 observables. This times the
+2-obs An-Schorfheide variant's full batch-last likelihood IN-LOOP (K
+iterations inside one lax.while_loop dispatch, so per-dispatch overhead
+divides out) and asserts parity against the vmapped f64 path.
 
 Usage: python benchmarks/bench_as_2obs.py [n_parts] [K]
 """
@@ -25,8 +24,8 @@ import numpy as np
 
 jax.config.update("jax_enable_x64", True)
 
-from smc_tpu.params import ParamSpace
-from smc_tpu.models.as_dsge import (an_schorfheide_2obs,
+from smc_jax.params import ParamSpace
+from smc_jax.models.as_dsge import (an_schorfheide_2obs,
                                     an_schorfheide_parameters,
                                     generate_as_data)
 

@@ -1,12 +1,10 @@
 """In-loop ablation of the LINEAR-model SMC stage on the chip.
 
-Round-4 VERDICT #7: the linear flagship sits at ~19.6 ms/stage (32k
-particles) vs a ~1.7 ms HBM-streaming floor estimated in round 3 — but that
-floor ignored f64-emulation op costs (RNG erfinv, exp/log transcendentals,
-eigh) entirely. This script measures each stage ingredient INSIDE a
-`lax.while_loop` of K iterations (one dispatch per item, so the ~24 ms
-dispatch floor of this box divides out), giving the honest device-side
-marginal cost of every component of the superstep at the bench shape.
+This script measures each stage ingredient INSIDE a `lax.while_loop` of K
+iterations (one dispatch per item, so per-dispatch overhead divides out),
+giving the device-side marginal cost of every component of the superstep
+at the bench shape (RNG, exp/log transcendentals, eigh, mixture
+densities, resampling).
 
 Emits one JSON line per item: {"metric": "linear_ablate", "item", "ms", ...}
 
@@ -28,12 +26,12 @@ import numpy as np
 
 jax.config.update("jax_enable_x64", True)
 
-from smc_tpu.params import ParamSpace
-from smc_tpu.models.linear import (linear_parameters, make_linear_loglike,
+from smc_jax.params import ParamSpace
+from smc_jax.models.linear import (linear_parameters, make_linear_loglike,
                                    generate_linear_data)
-from smc_tpu.ops.mutation import make_mutation_step, _deg_factor
-from smc_tpu.ops.resample import resample as resample_indices
-from smc_tpu.ops.correction import correct
+from smc_jax.ops.mutation import make_mutation_step, _deg_factor
+from smc_jax.ops.resample import resample as resample_indices
+from smc_jax.ops.correction import correct
 
 
 def weighted_mean_cov_free(params, weights, free_inds):
@@ -207,7 +205,7 @@ def main():
     emit("mutation_1b", loop_time(mutb1, base, K, "mutb1"))
 
     # 10. full superstep body (what the fused recursion runs per stage)
-    from smc_tpu.smc import make_superstep
+    from smc_jax.smc import make_superstep
     ss = make_superstep(space, llb, 3, 1, 0.9, "systematic", 0.5 * n)
     def sup(k, st):
         (p, l, lp, ol, w, acc, iw, W, ess, dr, am, mi) = ss(

@@ -1,6 +1,7 @@
 """Weak-scaling of the sharded SMC superstep: fixed particles-per-device,
 1 -> 2 -> 4 -> 8 devices on a virtual CPU mesh (the same SPMD program that
-runs on a TPU slice; BASELINE.json targets >=85% efficiency at 2 hosts).
+runs sharded over several GPUs; BASELINE.json targets >=85% efficiency at
+2 hosts).
 
 Prints one JSON line per mesh size:
   {"metric": "weak_scaling", "devices": d, "stage_ms": t, "efficiency": e}
@@ -30,11 +31,11 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from smc_tpu.params import ParamSpace
-from smc_tpu.models.linear import (linear_parameters, make_linear_loglike,
+from smc_jax.params import ParamSpace
+from smc_jax.models.linear import (linear_parameters, make_linear_loglike,
                                    generate_linear_data)
-from smc_tpu.smc import make_superstep
-from smc_tpu.parallel.mesh import particle_mesh
+from smc_jax.smc import make_superstep
+from smc_jax.parallel.mesh import particle_mesh
 
 
 def run(n_devices: int, per_device: int) -> float:

@@ -4,7 +4,7 @@ n_phi=100, lambda=2.0, systematic resampling).
 
 The linear RE solution runs by linear time iteration and the likelihood is a
 lax.scan Kalman filter — both vmapped across particles into batched linear
-algebra (see smc_tpu/models/dsge.py). Data is simulated from the model at
+algebra (see smc_jax/models/dsge.py). Data is simulated from the model at
 the Herbst-Schorfheide DGP values.
 
 Run: python examples/estimate_as_dsge.py
@@ -21,8 +21,8 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
-import smc_tpu
-from smc_tpu.models.as_dsge import (an_schorfheide, an_schorfheide_parameters,
+import smc_jax
+from smc_jax.models.as_dsge import (an_schorfheide, an_schorfheide_parameters,
                                     generate_as_data, TRUE_PARAMS, PARAM_NAMES)
 
 
@@ -32,9 +32,9 @@ def main():
 
     kw = dict(n_parts=400, n_phi=100, lam=2.0,
               resampling_method="systematic", verbose="low", seed=42)
-    if _os.environ.get("SMC_TPU_SMOKE"):  # CI smoke: tiny but same code path
+    if _os.environ.get("SMC_SMOKE"):  # CI smoke: tiny but same code path
         kw.update(n_parts=64, n_phi=10, verbose="none")
-    result = smc_tpu.smc(model.loglike_batched, an_schorfheide_parameters(),
+    result = smc_jax.smc(model.loglike_batched, an_schorfheide_parameters(),
                          data, batched=True, **kw)
 
     mu, sd = result.posterior_mean(), result.posterior_std()

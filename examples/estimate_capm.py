@@ -15,8 +15,8 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
-import smc_tpu
-from smc_tpu.models.capm import (capm_parameters, make_capm_loglike,
+import smc_jax
+from smc_jax.models.capm import (capm_parameters, make_capm_loglike,
                                  generate_capm_data)
 
 
@@ -25,7 +25,7 @@ def main():
     # estimate_capm.jl:40-42 loads) when mounted; else simulate
     true = None
     try:
-        from smc_tpu.models.capm import load_reference_capm_data
+        from smc_jax.models.capm import load_reference_capm_data
         lik_data, market_data = load_reference_capm_data()
         print("using the reference's shipped capm.jld2 dataset")
     except Exception:
@@ -36,9 +36,9 @@ def main():
     # All-default settings, as the reference example runs it
     # (estimate_capm.jl:74) — shrunk particle count for a quick demo.
     kw = dict(n_parts=1000, n_phi=100, lam=2.0, verbose="low", seed=0)
-    if _os.environ.get("SMC_TPU_SMOKE"):  # CI smoke: tiny but same code path
+    if _os.environ.get("SMC_SMOKE"):  # CI smoke: tiny but same code path
         kw.update(n_parts=64, n_phi=10, verbose="none")
-    result = smc_tpu.smc(loglike, capm_parameters(), lik_data, **kw)
+    result = smc_jax.smc(loglike, capm_parameters(), lik_data, **kw)
 
     mu, sd = result.posterior_mean(), result.posterior_std()
     if true is None:

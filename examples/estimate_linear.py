@@ -16,8 +16,8 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
-import smc_tpu
-from smc_tpu.models.linear import (linear_parameters, make_linear_loglike,
+import smc_jax
+from smc_jax.models.linear import (linear_parameters, make_linear_loglike,
                                    generate_linear_data)
 
 
@@ -28,10 +28,10 @@ def main():
     kw = dict(n_parts=400, n_phi=120, lam=2.0,
               resampling_method="systematic", verbose="low", seed=42,
               savepath="smc_cloud.npz", particle_store_path="smcsave.npy")
-    if _os.environ.get("SMC_TPU_SMOKE"):  # CI smoke: tiny but same code path
+    if _os.environ.get("SMC_SMOKE"):  # CI smoke: tiny but same code path
         kw.update(n_parts=64, n_phi=10, verbose="none",
                   savepath=None, particle_store_path=None)
-    result = smc_tpu.smc(loglike, linear_parameters(), data, **kw)
+    result = smc_jax.smc(loglike, linear_parameters(), data, **kw)
 
     true = np.array([1, 1, 1, 2, 2, 1, 3, 3, 1], dtype=float)
     mu, sd = result.posterior_mean(), result.posterior_std()

@@ -15,8 +15,8 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
-import smc_tpu
-from smc_tpu.models.regression import (regression_parameters,
+import smc_jax
+from smc_jax.models.regression import (regression_parameters,
                                        make_regression_loglike,
                                        generate_regression_data)
 
@@ -26,9 +26,9 @@ def main():
     loglike = make_regression_loglike(x)
 
     kw = dict(n_parts=100, verbose="low", seed=0)
-    if _os.environ.get("SMC_TPU_SMOKE"):  # CI smoke: tiny but same code path
+    if _os.environ.get("SMC_SMOKE"):  # CI smoke: tiny but same code path
         kw.update(n_parts=64, n_phi=10, verbose="none")
-    result = smc_tpu.smc(loglike, regression_parameters(), y, **kw)
+    result = smc_jax.smc(loglike, regression_parameters(), y, **kw)
 
     mu, sd = result.posterior_mean(), result.posterior_std()
     print(f"\nalpha: mean={mu[0]:.3f} std={sd[0]:.3f} (true 1.0)")

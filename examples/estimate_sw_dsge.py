@@ -3,7 +3,7 @@ production-scale config (examples/dsge_models/dsge_model.jl: n_parts=1000+,
 3 blocks, alpha=0.9, multinomial resampling, 40 cluster workers; here: one
 accelerator, batched likelihoods).
 
-Run: python examples/estimate_sw_dsge.py     (heavy on CPU; sized for TPU)
+Run: python examples/estimate_sw_dsge.py     (heavy on CPU; sized for a GPU)
 """
 
 import os as _os
@@ -17,8 +17,8 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
-import smc_tpu
-from smc_tpu.models.sw_dsge import (smets_wouters, sw_parameters,
+import smc_jax
+from smc_jax.models.sw_dsge import (smets_wouters, sw_parameters,
                                     generate_sw_data, TRUE_PARAMS,
                                     PARAM_NAMES)
 
@@ -29,9 +29,9 @@ def main():
 
     kw = dict(n_parts=1000, n_phi=100, lam=2.1, n_blocks=3, alpha=0.9,
               resampling_method="multinomial", verbose="low", seed=42)
-    if _os.environ.get("SMC_TPU_SMOKE"):  # CI smoke: tiny but same code path
+    if _os.environ.get("SMC_SMOKE"):  # CI smoke: tiny but same code path
         kw.update(n_parts=64, n_phi=8, verbose="none")
-    result = smc_tpu.smc(model.loglike_batched, sw_parameters(), data,
+    result = smc_jax.smc(model.loglike_batched, sw_parameters(), data,
                          batched=True, **kw)
 
     mu, sd = result.posterior_mean(), result.posterior_std()

@@ -9,8 +9,8 @@ model at T=80, so a tight absolute gate would be wrong)."""
 import numpy as np
 import pytest
 
-from smc_tpu import smc
-from smc_tpu.models.as_dsge import (an_schorfheide, an_schorfheide_parameters,
+from smc_jax import smc
+from smc_jax.models.as_dsge import (an_schorfheide, an_schorfheide_parameters,
                                     generate_as_data, TRUE_PARAMS)
 
 

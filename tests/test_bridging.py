@@ -7,8 +7,8 @@ distribution)."""
 import numpy as np
 import pytest
 
-from smc_tpu import smc
-from smc_tpu.models.linear import (linear_parameters, make_linear_loglike,
+from smc_jax import smc
+from smc_jax.models.linear import (linear_parameters, make_linear_loglike,
                                    generate_linear_data)
 
 TRUE = np.array([1.0, 1.0, 1.0, 2.0, 2.0, 1.0, 3.0, 3.0, 1.0])

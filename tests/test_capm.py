@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from smc_tpu import smc
-from smc_tpu.models.capm import (capm_parameters, make_capm_loglike,
+from smc_jax import smc
+from smc_jax.models.capm import (capm_parameters, make_capm_loglike,
                                  generate_capm_data)
 
 TRUE = np.array([0.1, 0.8, 0.5, 0.2, 1.0, 0.5, 0.3, 1.2, 0.5])

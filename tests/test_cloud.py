@@ -6,11 +6,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from smc_tpu.cloud import (Cloud, weighted_mean, weighted_cov, weighted_std,
+from smc_jax.cloud import (Cloud, weighted_mean, weighted_cov, weighted_std,
                            weighted_quantile, split_cloud, join_cloud,
                            add_parameters_to_cloud)
-from smc_tpu.params import ParamSpace, parameter
-from smc_tpu.distributions import Normal, Uniform
+from smc_jax.params import ParamSpace, parameter
+from smc_jax.distributions import Normal, Uniform
 
 
 def _cloud(n=200, p=4, seed=0):
@@ -143,7 +143,7 @@ def test_add_parameters_to_cloud():
 def test_add_parameters_to_cloud_from_file(tmp_path):
     """The reference's String overload (src/particle.jl:705-710): load the
     old cloud from a saved file."""
-    from smc_tpu import io as smc_io
+    from smc_jax import io as smc_io
     old_space = ParamSpace([
         parameter("a", 0.0, (-10, 10), prior=Normal(0, 1)),
         parameter("b", 0.0, (-10, 10), prior=Normal(0, 2)),
@@ -175,7 +175,7 @@ def test_add_parameters_to_cloud_regime_switching():
     (reference regime_switching kwarg -> n_parameters_regime_switching,
     src/particle.jl:717). Old flat columns preserved, new base+regime
     columns drawn from the prior."""
-    from smc_tpu.models.linear import rs_linear_parameters
+    from smc_jax.models.linear import rs_linear_parameters
     new_space = ParamSpace(rs_linear_parameters(), regime_switching=True)
     p_new = new_space.n_para
     assert p_new > 9  # regimes flattened into extra columns

@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from smc_tpu.ops.correction import (compute_ess, incremental_weights,
+from smc_jax.ops.correction import (compute_ess, incremental_weights,
                                     normalize_to_n, ess_from_normalized)
-from smc_tpu.ops.schedule import fixed_schedule, solve_adaptive_phi
+from smc_jax.ops.schedule import fixed_schedule, solve_adaptive_phi
 
 
 def test_fixed_schedule_endpoints_and_shape():

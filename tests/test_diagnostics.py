@@ -5,11 +5,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from smc_tpu.cloud import Cloud
-from smc_tpu.diagnostics import (VERBOSITY, vprint, init_stage_print,
+from smc_jax.cloud import Cloud
+from smc_jax.diagnostics import (VERBOSITY, vprint, init_stage_print,
                                  end_stage_print, check_nan_ess)
-from smc_tpu import smc
-from smc_tpu.models.linear import (linear_parameters, make_linear_loglike,
+from smc_jax import smc
+from smc_jax.models.linear import (linear_parameters, make_linear_loglike,
                                    generate_linear_data)
 
 
@@ -71,7 +71,7 @@ def test_stage_prints_smoke(capsys):
     init_stage_print(c, ["a", "b", "c"], verbose="high")
     end_stage_print(c, ["a", "b", "c"], verbose="high", stage_time=0.5)
     out = capsys.readouterr().out
-    assert "SMC (tpu) stage" in out
+    assert "SMC stage" in out
     assert "ESS" in out
     assert "mean" in out  # high verbosity prints the parameter table
 
@@ -90,8 +90,7 @@ def test_verbose_low_end_to_end(capsys):
 
 def test_profile_dir_writes_trace(tmp_path):
     """smc(profile_dir=...) must actually start/stop a jax.profiler trace
-    and leave trace artifacts on disk (round-3 VERDICT weak #4: the hook
-    was never exercised)."""
+    and leave trace artifacts on disk."""
     import os
     data, X = generate_linear_data(seed=1793)
     ll = make_linear_loglike(X)

@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 from scipy import stats as sps
 
-from smc_tpu import distributions as dist
+from smc_jax import distributions as dist
 
 
 @pytest.mark.parametrize("d,scipy_logpdf", [
@@ -81,7 +81,7 @@ def test_point_family_contributes_zero():
 
 
 def test_degenerate_mvnormal_full_rank_matches_scipy():
-    from smc_tpu.distributions import DegenerateMvNormal, get_cov
+    from smc_jax.distributions import DegenerateMvNormal, get_cov
     from scipy.stats import multivariate_normal
     rng = np.random.default_rng(0)
     A = rng.normal(size=(4, 4))
@@ -98,7 +98,7 @@ def test_degenerate_mvnormal_full_rank_matches_scipy():
 def test_degenerate_mvnormal_rank_deficient():
     """Pseudo-inverse density: zero-eigenvalue directions contribute nothing
     (reference DegenerateMvNormal semantics, SURVEY.md §2.9)."""
-    from smc_tpu.distributions import DegenerateMvNormal
+    from smc_jax.distributions import DegenerateMvNormal
     v = np.array([1.0, 1.0]) / np.sqrt(2.0)
     sigma = np.outer(v, v)  # rank 1
     d = DegenerateMvNormal(np.zeros(2), sigma)

@@ -6,11 +6,11 @@ import numpy as np
 import pytest
 import jax
 
-from smc_tpu import smc
-from smc_tpu.models.regression import (regression_parameters,
+from smc_jax import smc
+from smc_jax.models.regression import (regression_parameters,
                                        make_regression_loglike,
                                        generate_regression_data)
-from smc_tpu.models.linear import (linear_parameters, make_linear_loglike,
+from smc_jax.models.linear import (linear_parameters, make_linear_loglike,
                                    generate_linear_data)
 
 

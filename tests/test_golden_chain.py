@@ -1,4 +1,4 @@
-"""Fixed-seed self-golden chain regression (round-2 VERDICT Next #5).
+"""Fixed-seed self-golden chain regression.
 
 The reference pins every kernel to golden files regenerated under a seed
 (reference test/smc.jl:59-87, test/resample.jl:10-36, versioned by Julia
@@ -12,9 +12,10 @@ seed 42) is run on the CPU backend and compared EXACTLY (bitwise on the
 f64 arrays) against the committed golden `tests/goldens/linear_chain.npz`.
 
 Regeneration (after an *intentional* chain change — say why in the commit):
-    SMC_TPU_WRITE_GOLDENS=1 python -m pytest tests/test_golden_chain.py
+    SMC_WRITE_GOLDENS=1 python -m pytest tests/test_golden_chain.py
 
-Scope: the golden is pinned to the CPU backend (TPU float semantics differ)
+Scope: the golden is pinned to the CPU backend (accelerator float semantics
+differ)
 and to the JAX Threefry PRNG stream, which is bit-deterministic across
 platforms and versions by design.
 """
@@ -24,8 +25,8 @@ import os
 import numpy as np
 import pytest
 
-from smc_tpu import smc
-from smc_tpu.models.linear import (linear_parameters, make_linear_loglike,
+from smc_jax import smc
+from smc_jax.models.linear import (linear_parameters, make_linear_loglike,
                                    generate_linear_data)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
@@ -56,19 +57,19 @@ def _run_chain():
 
 def test_golden_chain_exact():
     got = _run_chain()
-    if os.environ.get("SMC_TPU_WRITE_GOLDENS"):
+    if os.environ.get("SMC_WRITE_GOLDENS"):
         os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
         np.savez_compressed(GOLDEN, **got)
         pytest.skip(f"golden regenerated at {GOLDEN}")
     assert os.path.exists(GOLDEN), (
-        "missing golden; regenerate with SMC_TPU_WRITE_GOLDENS=1")
+        "missing golden; regenerate with SMC_WRITE_GOLDENS=1")
     want = np.load(GOLDEN)
     for k in got:
         np.testing.assert_array_equal(
             got[k], want[k],
             err_msg=(f"golden-chain field '{k}' changed. If the chain "
                      "change is intentional, regenerate with "
-                     "SMC_TPU_WRITE_GOLDENS=1 and explain in the commit."))
+                     "SMC_WRITE_GOLDENS=1 and explain in the commit."))
 
 
 def test_golden_chain_statistics_sane():

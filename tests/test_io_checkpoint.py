@@ -6,10 +6,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from smc_tpu import smc, save_cloud, load_cloud, get_cloud
-from smc_tpu.cloud import Cloud
-from smc_tpu import io as smc_io
-from smc_tpu.models.linear import (linear_parameters, make_linear_loglike,
+from smc_jax import smc, save_cloud, load_cloud, get_cloud
+from smc_jax.cloud import Cloud
+from smc_jax import io as smc_io
+from smc_jax.models.linear import (linear_parameters, make_linear_loglike,
                                    generate_linear_data)
 
 
@@ -99,7 +99,7 @@ def test_split_join_cloud_files(tmp_path):
 def test_parity_kwargs_accepted_and_testing_suppresses_writes(fixture, tmp_path):
     data, ll = fixture
     savepath = str(tmp_path / "nope.npz")
-    from smc_tpu.models.linear import linear_parameters
+    from smc_jax.models.linear import linear_parameters
     res = smc(ll, linear_parameters(), data,
               n_parts=100, n_phi=20, lam=2.0, verbose="none", seed=2,
               parallel=True, testing=True, data_vintage="200707",

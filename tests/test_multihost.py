@@ -19,16 +19,16 @@ sys.path.insert(0, {repo!r})
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-from smc_tpu.parallel.mesh import initialize_multihost, particle_mesh
+from smc_jax.parallel.mesh import initialize_multihost, particle_mesh
 initialize_multihost(coordinator_address=f"localhost:{{port}}",
                      num_processes=nproc, process_id=pid)
 import numpy as np
-import smc_tpu
-from smc_tpu.models.linear import (linear_parameters, make_linear_loglike,
+import smc_jax
+from smc_jax.models.linear import (linear_parameters, make_linear_loglike,
                                    generate_linear_data)
 data, X = generate_linear_data(seed=1793)
 ll = make_linear_loglike(X)
-res = smc_tpu.smc(ll, linear_parameters(), data,
+res = smc_jax.smc(ll, linear_parameters(), data,
                   n_parts=512, n_phi=20, lam=2.0, verbose="none", seed=42,
                   mesh=particle_mesh(), store_weight_matrices=False)
 print("RESULT", repr(float(res.log_mdd)),

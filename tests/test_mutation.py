@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 from scipy import stats as sps
 
-from smc_tpu.params import ParamSpace, parameter
-from smc_tpu.distributions import Normal
-from smc_tpu.ops.mutation import (block_sizes, make_mutation_step,
+from smc_jax.params import ParamSpace, parameter
+from smc_jax.distributions import Normal
+from smc_jax.ops.mutation import (block_sizes, make_mutation_step,
                                   mvnormal_mixture_draw,
                                   compute_proposal_densities, _deg_factor,
                                   _deg_logpdf)

@@ -15,9 +15,9 @@ import numpy as np
 import pytest
 import jax
 
-from smc_tpu import smc
-from smc_tpu.cloud import weighted_cov
-from smc_tpu.models.regression import (regression_parameters,
+from smc_jax import smc
+from smc_jax.cloud import weighted_cov
+from smc_jax.models.regression import (regression_parameters,
                                        make_regression_loglike,
                                        generate_regression_data)
 
@@ -97,7 +97,7 @@ def test_estimation_on_reference_shipped_data():
     path = "/root/reference/test/reference/test_data.h5"
     if not os.path.exists(path):
         pytest.skip("reference data not mounted")
-    from smc_tpu.models.linear import (load_reference_data, linear_parameters,
+    from smc_jax.models.linear import (load_reference_data, linear_parameters,
                                        make_linear_loglike,
                                        exact_linear_posterior)
     data, X = load_reference_data(path)

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 from scipy import stats as sps
 
-from smc_tpu.distributions import Normal, Uniform, TruncatedNormal
-from smc_tpu.params import ParamSpace, parameter, Untransformed
-from smc_tpu.models.linear import linear_parameters, rs_linear_parameters
+from smc_jax.distributions import Normal, Uniform, TruncatedNormal
+from smc_jax.params import ParamSpace, parameter, Untransformed
+from smc_jax.models.linear import linear_parameters, rs_linear_parameters
 
 
 def _space():

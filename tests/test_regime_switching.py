@@ -5,9 +5,9 @@ three regimes."""
 import numpy as np
 import pytest
 
-from smc_tpu import smc
-from smc_tpu.params import ParamSpace
-from smc_tpu.models.linear import (rs_linear_parameters,
+from smc_jax import smc
+from smc_jax.params import ParamSpace
+from smc_jax.models.linear import (rs_linear_parameters,
                                    make_rs_linear_loglike,
                                    generate_rs_linear_data)
 

@@ -3,10 +3,10 @@ GenericModel + Setting + rawpath conventions, SURVEY.md §2.9, §5)."""
 
 import numpy as np
 
-import smc_tpu
-from smc_tpu import GenericModel, Setting, smc_settings_kwargs, rawpath, dataroot
-from smc_tpu.params import parameter
-from smc_tpu.distributions import Normal
+import smc_jax
+from smc_jax import GenericModel, Setting, smc_settings_kwargs, rawpath, dataroot
+from smc_jax.params import parameter
+from smc_jax.distributions import Normal
 
 
 def _model():
@@ -51,17 +51,17 @@ def test_block_generation_helpers():
     """generate_free_blocks / generate_all_blocks parity
     (reference src/helpers.jl:215-260)."""
     import jax
-    blocks = smc_tpu.generate_free_blocks(jax.random.PRNGKey(0), 10, 3)
+    blocks = smc_jax.generate_free_blocks(jax.random.PRNGKey(0), 10, 3)
     sizes = [len(b) for b in blocks]
     assert sizes == [4, 4, 2]
     flat = np.sort(np.concatenate([np.asarray(b) for b in blocks]))
     np.testing.assert_array_equal(flat, np.arange(10))
     free_inds = np.array([0, 2, 3, 5, 6, 7, 8, 11, 12, 14])
-    all_blocks = smc_tpu.generate_all_blocks(blocks, free_inds)
+    all_blocks = smc_jax.generate_all_blocks(blocks, free_inds)
     for bf, ba in zip(blocks, all_blocks):
         np.testing.assert_array_equal(np.asarray(ba),
                                       free_inds[np.asarray(bf)])
-    pblocks = smc_tpu.generate_param_blocks(jax.random.PRNGKey(1), 9, 2)
+    pblocks = smc_jax.generate_param_blocks(jax.random.PRNGKey(1), 9, 2)
     assert [len(b) for b in pblocks] == [5, 4]
     for b in pblocks:  # sorted within block (reference :202)
         assert np.all(np.diff(np.asarray(b)) > 0)

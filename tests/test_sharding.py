@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from smc_tpu import smc
-from smc_tpu.parallel.mesh import particle_mesh, particle_sharding
-from smc_tpu.models.linear import (linear_parameters, make_linear_loglike,
+from smc_jax import smc
+from smc_jax.parallel.mesh import particle_mesh, particle_sharding
+from smc_jax.models.linear import (linear_parameters, make_linear_loglike,
                                    generate_linear_data)
 
 TRUE = np.array([1.0, 1.0, 1.0, 2.0, 2.0, 1.0, 3.0, 3.0, 1.0])
@@ -55,25 +55,26 @@ def test_indivisible_n_parts_raises():
 
 
 def test_dryrun_multichip():
+    import os
     import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     import __graft_entry__
     __graft_entry__.dryrun_multichip(8)
 
 
 # ---------------------------------------------------------------------------
-# Production DSGE path under a mesh (round-3 VERDICT missing #4): the
-# batch-last likelihood keeps the particle axis sharded even though it is
+# Production DSGE path under a mesh: the batch-last likelihood keeps the particle axis sharded even though it is
 # the LAST axis of every intermediate ([r, c, N] layout, models/dsge.py),
 # and the full driver agrees with the unsharded run.
 # ---------------------------------------------------------------------------
 
 
 def _small_as(T=12):
-    from smc_tpu.models.as_dsge import (an_schorfheide,
+    from smc_jax.models.as_dsge import (an_schorfheide,
                                         an_schorfheide_parameters,
                                         generate_as_data)
-    from smc_tpu.params import ParamSpace
+    from smc_jax.params import ParamSpace
     model = an_schorfheide()
     data = generate_as_data(T=T, seed=1793)
     space = ParamSpace(an_schorfheide_parameters())
@@ -118,50 +119,3 @@ def test_as_batched_smc_sharded_matches_unsharded():
     np.testing.assert_allclose(np.asarray(r1.cloud.loglh),
                                np.asarray(r2.cloud.loglh), rtol=1e-9)
     np.testing.assert_allclose(r1.log_mdd, r2.log_mdd, rtol=1e-9)
-
-
-@pytest.mark.slow
-def test_pallas_re_solve_sharded_no_collectives():
-    """The Pallas kernels composed with the mesh (round-4 VERDICT ask #5):
-    shard_map runs one pallas_call per device shard (interpret mode on
-    CPU); the compiled program must contain NO cross-device collectives
-    and must agree with the XLA batch-last path. Scope note: this drives
-    the RE-solve kernel — the FULL AS likelihood kernel's interpret-mode
-    compile costs >1 h of XLA-CPU on this box (measured round 5) and its
-    mesh composition is instead validated on real hardware by
-    benchmarks/bench_as_pallas.py's 1-device-mesh parity item, where
-    Mosaic compiles in ~1 min."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from smc_tpu.ops.pallas_dsge import pallas_solve_linear_re
-    from smc_tpu.models.dsge import bl_solve_linear_re
-    mesh = particle_mesh()
-    rng = np.random.default_rng(5)
-    n, ns = 16 * 8, 3
-    A = np.zeros((ns, ns, n)); B = np.zeros((ns, ns, n))
-    C = np.zeros((ns, ns, n)); D = np.zeros((ns, ns, n))
-    for k in range(n):
-        B[..., k] = np.eye(ns)
-        A[..., k] = -np.diag(rng.uniform(0.2, 0.8, ns))
-        D[..., k] = -np.eye(ns)
-    m3 = P(None, None, "parts")
-    f = jax.jit(jax.shard_map(
-        lambda a, b, c, d: pallas_solve_linear_re(a, b, c, d, n_iter=4,
-                                                  interpret=True),
-        mesh=mesh, in_specs=(m3,) * 4, out_specs=(m3, m3, P("parts")),
-        check_vma=False))
-    args = tuple(jax.device_put(jnp.asarray(x), NamedSharding(mesh, m3))
-                 for x in (A, B, C, D))
-    compiled = f.lower(*args).compile()
-    hlo = compiled.as_text()
-    for coll in ("all-gather", "all-reduce", "collective-permute",
-                 "all-to-all"):
-        assert coll not in hlo, f"pallas shard_map inserted {coll}"
-    Xp, Mp, okp = compiled(*args)
-    jax.block_until_ready(Xp)
-    assert not Xp.sharding.is_fully_replicated
-    Xx, Mx, okx = bl_solve_linear_re(jnp.asarray(A), jnp.asarray(B),
-                                     jnp.asarray(C), jnp.asarray(D),
-                                     n_iter=4)
-    np.testing.assert_array_equal(np.asarray(okp), np.asarray(okx))
-    np.testing.assert_allclose(np.asarray(Xp), np.asarray(Xx),
-                               rtol=1e-9, atol=1e-11)

@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import jax
 
-from smc_tpu import smc, marginal_data_density
-from smc_tpu.models.linear import (linear_parameters, make_linear_loglike,
+from smc_jax import smc, marginal_data_density
+from smc_jax.models.linear import (linear_parameters, make_linear_loglike,
                                    generate_linear_data)
 
 TRUE = np.array([1.0, 1.0, 1.0, 2.0, 2.0, 1.0, 3.0, 3.0, 1.0])
@@ -43,7 +43,7 @@ def test_posterior_mean_vs_exact_oracle(result, fixture):
     computable (independent equations, sigma by quadrature) — the sampler
     must be within combined MC error of the exact mean, not just within 0.5
     of the DGP truth."""
-    from smc_tpu.models.linear import exact_linear_posterior, generate_linear_data
+    from smc_jax.models.linear import exact_linear_posterior, generate_linear_data
     data, X = generate_linear_data(seed=1793)
     oracle = exact_linear_posterior(data, X)
     # 0.5 = the reference's own gate width; at this CI config (n_phi=120)
@@ -134,12 +134,12 @@ def test_seed_reproducibility(fixture):
 def test_one_draw_single_particle():
     """one_draw parity (reference src/initialization.jl:23-63): one valid
     prior draw with finite loglh/logprior."""
-    from smc_tpu.ops.initialization import one_draw
+    from smc_jax.ops.initialization import one_draw
     import jax as _jax
     space, ll_batched = _linear_setup() if "_linear_setup" in dir() else (None, None)
     if space is None:
-        from smc_tpu.params import ParamSpace
-        from smc_tpu.models.linear import (linear_parameters,
+        from smc_jax.params import ParamSpace
+        from smc_jax.models.linear import (linear_parameters,
                                            make_linear_loglike,
                                            generate_linear_data)
         data, X = generate_linear_data(seed=1793)

@@ -1,4 +1,4 @@
-"""Log-space correction stability (round-2 VERDICT Next #1).
+"""Log-space correction stability.
 
 The reference exponentiates (phi_n - phi_n1)*loglh raw
 (/root/reference/src/smc_main.jl:401-410) and NaN-ESS-aborts whenever a
@@ -20,11 +20,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from smc_tpu import smc
-from smc_tpu.ops.correction import (correct, compute_ess,
+from smc_jax import smc
+from smc_jax.ops.correction import (correct, compute_ess,
                                     log_incremental_weights,
                                     incremental_weights)
-from smc_tpu.models.linear import (linear_parameters, make_linear_loglike,
+from smc_jax.models.linear import (linear_parameters, make_linear_loglike,
                                    generate_linear_data)
 
 TRUE = np.array([1.0, 1.0, 1.0, 2.0, 2.0, 1.0, 3.0, 3.0, 1.0])

@@ -1,5 +1,5 @@
 """Smets-Wouters (2007) model: solution structure, likelihood shape, and a
-3-stage SMC smoke run (the full estimation is TPU-scale work — reference
+3-stage SMC smoke run (the full estimation is accelerator-scale work — reference
 examples/dsge_models/dsge_model.jl ran it on a 40-worker cluster)."""
 
 import numpy as np
@@ -7,10 +7,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from smc_tpu import smc
-from smc_tpu.params import ParamSpace
-from smc_tpu.models.dsge import solve_linear_re
-from smc_tpu.models.sw_dsge import (smets_wouters, sw_parameters, _system,
+from smc_jax import smc
+from smc_jax.params import ParamSpace
+from smc_jax.models.dsge import solve_linear_re
+from smc_jax.models.sw_dsge import (smets_wouters, sw_parameters, _system,
                                     generate_sw_data, TRUE_PARAMS,
                                     PARAM_NAMES, STATE_NAMES, N_STATE)
 

@@ -1,6 +1,6 @@
 """Smets-Wouters end-to-end estimation on simulated data with a posterior
-z-score gate against the DGP (round-1 VERDICT item 7: "no posterior-accuracy
-validation at any scale" for SW). Reference production shape:
+z-score gate against the DGP (posterior-accuracy validation at SW scale).
+Reference production shape:
 examples/dsge_models/dsge_model.jl:27-35 (blocked mutation, alpha=0.9,
 multinomial resampling on the FRBNY cluster).
 
@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import jax
 
-from smc_tpu import smc
-from smc_tpu.models.sw_dsge import (smets_wouters, sw_parameters,
+from smc_jax import smc
+from smc_jax.models.sw_dsge import (smets_wouters, sw_parameters,
                                     generate_sw_data, TRUE_PARAMS,
                                     PARAM_NAMES)
 
